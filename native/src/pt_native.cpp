@@ -1,8 +1,8 @@
-// Native runtime components for the TPU path tracer.
+// Native host-runtime components of the path tracer.
 //
 // The reference implements its whole host runtime in C++ (scene/OBJ
 // loading, image output — reference: src/scene.cpp, src/image.cpp); these
-// are the TPU framework's native equivalents for the host-side hot paths:
+// are the framework's native equivalents for the host-side hot paths:
 //
 //   * pt_parse_obj   — fast Wavefront OBJ triangulation (the Python parser
 //                      is the fallback; this one is ~50x faster on the

@@ -1,12 +1,13 @@
-"""project3_cuda_path_tracer_tpu — a TPU-native differentiable path tracer.
+"""project3_cuda_path_tracer_tpu — a differentiable wavefront path tracer.
 
-Brand-new JAX/XLA/Pallas/pjit framework with the full capability surface of
-the CIS565 CUDA path tracer (reference mounted at /root/reference): wavefront
-Monte Carlo rendering (camera ray generation, scene intersection, BSDF
-shading), stream compaction, material-sorted shading, stochastic AA, thin-lens
-depth of field, motion blur, OBJ meshes with BVH, textures + HDR environment
-lighting, progressive accumulation, PNG/HDR output — plus end-to-end
-differentiability and multi-host TPU sharding that the reference lacks.
+A JAX framework with the full capability surface of the CIS565 CUDA path
+tracer: wavefront Monte Carlo rendering (camera ray generation, scene
+intersection, BSDF shading), stream compaction, material-sorted shading,
+stochastic AA, thin-lens depth of field, motion blur, OBJ meshes with an
+8-wide BVH (a CUDA traversal kernel on NVIDIA GPUs), textures + HDR
+environment lighting, progressive accumulation, PNG/HDR output — plus
+end-to-end differentiability and multi-device sharding that the reference
+lacks.
 
 Quick start:
     from project3_cuda_path_tracer_tpu import load_scene, Renderer

@@ -25,8 +25,8 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="tpu_path_tracer",
-        description="TPU-native differentiable path tracer")
+        prog="path_tracer",
+        description="differentiable wavefront path tracer (JAX)")
     p.add_argument("scene", help="scene file (reference text format)")
     p.add_argument("--iterations", type=int, default=None,
                    help="override the scene's ITERATIONS")
@@ -53,13 +53,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-bake", action="store_true",
                    help="keep scene tables as runtime arrays instead of "
                         "baking them into the compiled program as "
-                        "constants (baking is a 1.35x forward win; "
-                        "disable when mutating the scene between steps)")
+                        "constants (XLA folds them; disable when "
+                        "mutating the scene between steps)")
     p.add_argument("--sampler", choices=("lattice", "sobol"),
                    default="lattice",
                    help="stratified-sampling implementation: lattice "
-                        "(default; a net speedup) or Owen-scrambled "
-                        "sobol (best per-sample RMSE, ~40%% ALU cost — "
+                        "(default; cheapest draws) or Owen-scrambled "
+                        "sobol (best per-sample RMSE, costlier draws — "
                         "for traversal-dominated scenes)")
     p.add_argument("--nee-ris", type=int, default=0, metavar="M",
                    help="RIS direct lighting: resample one shadow ray "
@@ -106,11 +106,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "Project-4 follow-up)")
     p.add_argument("--sharded", action="store_true",
                    help="shard pixels across all visible devices")
-    p.add_argument("--megakernel", action="store_true",
-                   help="use the fused Pallas megakernel renderer "
-                        "(primitive scenes; a measured ~2-4x slower "
-                        "alternative to XLA's fusion — kept as the "
-                        "hand-fusion experiment surface, BENCHMARKS.md)")
     p.add_argument("--preview", type=int, default=0, metavar="PORT",
                    help="serve a live HTTP preview on PORT")
     p.add_argument("--seed", type=int, default=0)
@@ -135,6 +130,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     import jax
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.debug_nans:
         jax.config.update("jax_debug_nans", True)
     from ..scene.parser import load_scene
@@ -165,15 +162,15 @@ def main(argv=None) -> int:
     st.clamp = args.clamp
     st.bilinear = args.bilinear or args.bilinear_fast
     st.bilinear_fast = args.bilinear_fast
-    if args.adaptive and (args.megakernel or args.sort or args.compact):
-        print("--adaptive is incompatible with "
-              "--megakernel/--sort/--compact", file=sys.stderr)
+    if args.adaptive and (args.sort or args.compact):
+        print("--adaptive is incompatible with --sort/--compact",
+              file=sys.stderr)
         return 2
-    if args.restir and (args.megakernel or args.sort or args.compact
-                        or args.adaptive or args.sharded):
-        print("--restir is incompatible with --megakernel/--sort/"
-              "--compact/--adaptive/--sharded (identity single-device "
-              "path order required)", file=sys.stderr)
+    if args.restir and (args.sort or args.compact or args.adaptive
+                        or args.sharded):
+        print("--restir is incompatible with --sort/--compact/--adaptive/"
+              "--sharded (identity single-device path order required)",
+              file=sys.stderr)
         return 2
     os.makedirs(args.outdir, exist_ok=True)
     base = os.path.join(args.outdir, args.out or st.image_name)
@@ -181,23 +178,6 @@ def main(argv=None) -> int:
     if args.sharded:
         from ..parallel.sharding import ShardedRenderer
         renderer = ShardedRenderer(scene)
-    elif args.megakernel:
-        from ..ops.megakernel import MegakernelRenderer, supports
-        if args.nee:
-            print("nee: not supported by the megakernel renderer; ignored "
-                  "(use the default wavefront renderer)", file=sys.stderr)
-        if not supports(scene):
-            print("scene not megakernel-eligible (mesh/texture/env); "
-                  "falling back to the jnp renderer", file=sys.stderr)
-            renderer = Renderer(scene)
-        elif jax.default_backend() == "cpu":
-            # The fused kernel is Mosaic/TPU-only (interpret mode would
-            # draw all-zero uniforms from the stubbed on-core PRNG).
-            print("megakernel requires a TPU backend; "
-                  "falling back to the jnp renderer", file=sys.stderr)
-            renderer = Renderer(scene)
-        else:
-            renderer = MegakernelRenderer(scene)
     else:
         renderer = Renderer(scene)
 

@@ -33,7 +33,7 @@ import numpy as np
 from ..utils import image as img_io
 from .orbit import OrbitState
 
-_PAGE = b"""<!doctype html><html><head><title>tpu path tracer</title>
+_PAGE = b"""<!doctype html><html><head><title>path tracer</title>
 <style>body{background:#111;color:#ddd;font-family:monospace;text-align:center}
 img{image-rendering:pixelated;max-width:90vmin;cursor:grab;user-select:none}
 </style></head><body>

@@ -94,8 +94,8 @@ def history_residual_grad_loss(params, geoms, meshes, textures, key, cfg,
     render. The one caveat is staleness: past renders were taken at past
     θ, so the residual lags E[L(θ_now)] by one optimizer step (the
     default HISTORY_DECAY = 0.0 uses exactly the previous step's
-    render). MEASURED consequence (tools/inverse_demo.py A/B, BENCHMARKS
-    round 4): under CONSTANT-lr adam the lag shifts the fit's
+    render). MEASURED consequence (tools/inverse_demo.py A/B): under
+    CONSTANT-lr adam the lag shifts the fit's
     equilibrium by roughly one adam step's worth of parameter drift —
     e.g. +0.2 albedo at lr 5e-2 on the 32^2 demo, shrinking to the
     two-render loss's own level at lr 1e-2; a periodic independent
@@ -104,8 +104,7 @@ def history_residual_grad_loss(params, geoms, meshes, textures, key, cfg,
     with `unbiased_mse_grad_loss` for the final steps; for training
     throughput the shift is irrelevant. Decays >0 were measured UNSTABLE
     — see the HISTORY_DECAY comment. This halves the train step (one
-    render + backward instead of two renders + backward) — the
-    round-3→4 fwd+bwd throughput lever.
+    render + backward instead of two renders + backward).
 
     Returns (loss, rendered_image): the caller folds the (detached) image
     into its history EMA for the next step."""
@@ -117,8 +116,7 @@ def history_residual_grad_loss(params, geoms, meshes, textures, key, cfg,
 
 def _bake_static_tables(geoms, textures, bake: bool):
     """Convert the NON-differentiable scene tables to host constants so
-    XLA folds them (render/integrator.bake_tables rationale; 1.35x on the
-    cornell forward, which the train step runs 2-3x per step). The
+    XLA folds them (render/integrator.bake_tables rationale). The
     differentiable params (materials, camera) are NOT touched — and geoms
     baking means sdf_params/transforms cannot be differentiated through
     this step (RenderParams never includes them)."""
@@ -208,19 +206,19 @@ def make_train_scan(geoms, meshes, textures, cfg: integ.TraceConfig,
                     history: bool = False,
                     history_decay: float = HISTORY_DECAY):
     """Build a jitted function that runs `num_steps` optimizer steps in ONE
-    device program via lax.scan — the production training-loop form. Per-step
-    host dispatch costs tens of ms over a remote-attached chip; scanning the
-    loop on device removes all of it (and is the standard JAX idiom for
-    training epochs). RNG: step i uses fold_in(key, i), matching what the
-    equivalent make_train_step loop would do.
+    device program via lax.scan — the production training-loop form.
+    Scanning the loop on device removes the per-step host dispatch (and
+    is the standard JAX idiom for training epochs). RNG: step i uses
+    fold_in(key, i), matching what the equivalent make_train_step loop
+    would do.
 
-    ``history=True`` (opt-in — the round-4 throughput form, what bench.py
+    ``history=True`` (opt-in — the throughput form, what bench.py
     uses) switches to the one-render history-residual step: signature
     (params, opt_state, hist, key, target) -> (params, opt_state, hist,
     losses[num_steps]); the residual EMA is loop-carried through the scan
     AND across epochs (seed it once with make_seed_history). One render +
-    backward per step instead of two renders + backward — measured ~1.5x
-    step throughput at equal fit quality (BENCHMARKS.md round 4).
+    backward per step instead of two renders + backward, at equal fit
+    quality (tests/test_grad.py).
     ``history=False`` gives the original two-render form
     (params, opt_state, key, target) -> (params, opt_state, losses).
 
@@ -283,8 +281,7 @@ class InverseRenderer:
     Loss schedule: ``history=True`` (default) runs the fast ONE-render
     history-residual step, whose one-step-stale residual shifts the fit
     equilibrium by ~one adam step of drift at constant lr (measured:
-    +0.2 albedo at lr 5e-2 on the 32^2 demo — BENCHMARKS.md round-4 fit
-    caveat). The PRECISION mitigation is shipped, not advisory:
+    +0.2 albedo at lr 5e-2 on the 32^2 demo). The PRECISION mitigation is shipped, not advisory:
     ``fit(steps)`` finishes with ``polish_steps`` two-render unbiased
     steps (same optimizer state; the lag term vanishes, adam's momentum
     washes out in ~1/(1-b1)=10 steps), so the default fit converges to
@@ -296,7 +293,7 @@ class InverseRenderer:
     # momentum horizon is 1/(1-b1) = 10 steps; 3x that replaces the stale
     # history equilibrium with the unbiased one (measured: recovers the
     # two-render fit to ±0.02 on the 32^2 demo at lr 5e-2 — see
-    # tools/inverse_demo.py --polish A/B in BENCHMARKS.md round 5).
+    # tools/inverse_demo.py --polish).
     POLISH_STEPS = 30
 
     def __init__(self, scene: T.Scene, target: np.ndarray,
@@ -309,13 +306,13 @@ class InverseRenderer:
         types = np.asarray(scene.geoms.type)
         mesh_idx = tuple(int(i) for i in np.nonzero(types == T.MESH)[0])
         depth = trace_depth or scene.settings.trace_depth
-        # Auto trace schedule (round-4 A/B, BENCHMARKS.md): for non-mesh
-        # scenes up to the canonical 800^2 x depth-8 size, UNROLLING the
-        # bounce loop with remat OFF runs the train step 1.8x faster
-        # (all bounce residuals fit HBM as plain live values; under a
-        # scan the same choice is the WORST schedule). Mesh scenes keep
-        # remat (packet-traversal recompute is the expensive part), and
-        # bigger traces keep scan+save-"hits" for memory.
+        # Auto trace schedule: for non-mesh scenes up to the canonical
+        # 800^2 x depth-8 size, UNROLL the bounce loop with remat OFF (all
+        # bounce residuals stay plain live values; under a scan the same
+        # choice is the worst schedule). Mesh scenes and bigger traces
+        # keep scan+save-"hits" for memory. Chosen from measurements on
+        # the previous accelerator; an H100 train cell on each side of the
+        # size threshold decides it again (ROADMAP A3).
         fast = (not mesh_idx) and (w * h * depth <= 800 * 800 * 8)
         self.cfg = integ.TraceConfig(
             width=w, height=h,
@@ -324,7 +321,7 @@ class InverseRenderer:
             mesh_geom_indices=mesh_idx,
             geom_types=tuple(int(t) for t in types),
             mesh_ids=tuple(int(m) for m in np.asarray(scene.geoms.mesh_id)),
-            unroll=bool(len(mesh_idx) and scene.packed_meshes) or fast,
+            unroll=fast,
             remat=not fast,
             differentiable_mesh=bool(len(mesh_idx)),
             glossy=bool(np.any(np.asarray(

@@ -1,6 +1,6 @@
 """Camera ray generation (wavefront stage 1).
 
-TPU-native SoA re-design of generateRayFromCamera
+Structure-of-arrays re-design of generateRayFromCamera
 (reference: src/pathtrace.cu:122-143):
     dir = normalize(view - right*pl.x*(x - W/2) - up*pl.y*(y - H/2))
 Both offsets subtracted -> the raw framebuffer is x-mirrored and the save

@@ -4,7 +4,7 @@ The reference plans thrust-style compaction that *shrinks* the wavefront each
 bounce (reference: src/pathtrace.cu:313-317, stream_compaction/CMakeLists.txt)
 and material-key sorting for memory-coherent shading
 (reference: src/pathtrace.cu:366-367). XLA has no dynamic shapes, so the
-TPU-native formulation is:
+formulation here is:
 
   * compaction = stable partition into the same fixed-capacity buffer
     (live paths first) + a `num_live` scalar — downstream kernels mask on
@@ -29,7 +29,7 @@ MISS_KEY = jnp.int32(0x3FFFFFFF)
 
 def exclusive_scan(x: jnp.ndarray) -> jnp.ndarray:
     """Exclusive prefix sum along the last axis (the scan at the heart of
-    GPU stream compaction; maps to XLA's fused cumsum on TPU)."""
+    GPU stream compaction; maps to XLA's fused cumsum)."""
     return jnp.cumsum(x, axis=-1) - x
 
 
@@ -37,8 +37,8 @@ def compaction_permutation(alive: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray
     """Stable-partition permutation: indices of live paths first, dead after.
 
     Returns (perm [N] int32, num_live scalar int32). Equivalent to
-    scan+scatter compaction but expressed as a gather, which XLA schedules
-    better than a scatter on TPU.
+    scan+scatter compaction but expressed as a gather (XLA schedules a
+    gather better than a scatter).
     """
     alive_i = alive.astype(jnp.int32)
     n = alive.shape[0]

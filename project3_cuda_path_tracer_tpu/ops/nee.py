@@ -21,7 +21,7 @@ converge to the same image). Scenes with BOTH area lights and an HDR
 env run a flux-proportional one-sample mixture of the two light
 samplers (render/integrator._wire_nee's nee_q).
 
-TPU design decisions:
+Design decisions:
   * The light table is STATIC (a hashable tuple baked into TraceConfig):
     light geometry derives from scene transforms, which the
     differentiable path never optimizes. Emitted radiance
@@ -117,8 +117,8 @@ def build_light_table(scene) -> Tuple[tuple, float]:
 
 # Above this face count the static unroll switches to the gather-based
 # sampler: the unroll's XLA cost is O(F) chained selects PER CANDIDATE
-# (the round-4 probe measured a 64-face x M=4 x depth-4 trace exceeding
-# 50 min of CPU compile), while the gather form is F-independent
+# (a 64-face x M=4 x depth-4 trace took over 50 min to compile on the
+# CPU backend), while the gather form is F-independent
 # (log F searchsorted + 15 small-table takes). For small F the unroll
 # wins at runtime (no gathers), so it stays the default.
 UNROLL_MAX_FACES = 16

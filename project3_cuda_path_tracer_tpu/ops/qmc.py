@@ -16,7 +16,7 @@ of the (shuffled) index are expanded — the index shuffle is a bijection
 on u32, so truncating would alias distinct iterations onto the same
 Sobol point (bias).
 
-TPU cost: ~4 x 32 unrolled bit rows per pair; only paid under
+Cost: ~4 x 32 unrolled bit rows per pair; only paid under
 --stratified (and a variance cut far larger than the cost under --nee).
 """
 from __future__ import annotations

@@ -3,10 +3,9 @@ primitive slots ("metaball? CSG?", reference src/pathtrace.cu:188).
 
 A new GeomType (`T.SDF`) whose object-space surface is the zero set of a
 signed distance function, intersected by fixed-iteration sphere tracing —
-the TPU-native form of an iterative root find: a `lax.scan` with a static
+the wavefront form of an iterative root find: a `lax.scan` with a static
 trip count over fully elementwise distance evaluations (no data-dependent
-control flow, full 128-lane VPU utilization like every other wavefront
-kernel).
+control flow, like every other wavefront kernel).
 
 Kinds (static per geom, so XLA traces exactly one distance function per
 object — no runtime dispatch):

@@ -1,10 +1,9 @@
 """Planar (component-SoA) 3-vector math for the hot path.
 
-TPU layout rationale: a logical [N,3] array places the length-3 axis in the
-128-lane vector dimension, so every VPU op runs at 3/128 utilization and
-every HBM transfer pads 42x. The TPU-native structure-of-arrays is therefore
-*planar*: three flat [N] arrays (x, y, z), each tiled (8,128) over N at full
-utilization. This module is the vocabulary the wavefront kernels
+Layout rationale: a logical [N,3] array puts a length-3 axis innermost, so
+elementwise work and memory transfers are strided or padded by it. The
+structure-of-arrays form is therefore *planar*: three flat [N] arrays
+(x, y, z), each contiguous over N (coalesced loads on a GPU). This module is the vocabulary the wavefront kernels
 (ops/camera, ops/intersect, ops/bsdf) are written in; [N,3] appears only at
 host boundaries (scene tables, final image assembly).
 """

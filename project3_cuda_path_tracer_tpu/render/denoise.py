@@ -7,7 +7,7 @@ passes with exponentially growing tap spacing, each tap weighted by
 radiance / normal / world-position differences so filtering never
 crosses geometric edges.
 
-TPU design: one pass = 25 statically-shifted elementwise accumulations
+Design: one pass = 25 statically-shifted elementwise accumulations
 over the [H,W] planes (edge-clamped pad + slice — static shifts lower to
 cheap windowed reads, no gathers, no convolution op needed at this
 sparsity); XLA fuses each pass into a handful of elementwise kernels.

@@ -4,7 +4,7 @@ Fills the reference's mesh/acceleration TODO slot (reference:
 src/pathtrace.cu:188 "add more intersection tests here... triangle",
 src/pathtrace.cu:308-309 "more primitives and/or a better algorithm").
 
-TPU-first design: the tree is built on the host with binned SAH and then
+Design: the tree is built on the host with binned SAH and then
 flattened into the skip-pointer (escape-index) layout of
 `scene.types.MeshBundle`, so the device-side traversal
 (`ops.intersect.bvh_traverse`) is a stackless `lax.while_loop` with one int32

@@ -315,9 +315,8 @@ def load_scene(path: str) -> T.Scene:
         from .bvh import build_mesh_bundle
         from ..ops.bvh8 import pack_all8
         meshes = build_mesh_bundle(mesh_paths)
-        # 8-wide BVH is the default mesh traversal (1.45x the binary packet
-        # kernel on v5e, ops/bvh8.py); ops.pallas_bvh.pack_all swaps a scene
-        # back to the binary kernel (the integrator dispatches on the type).
+        # one 8-wide BVH per mesh: the tables the mesh traversal reads
+        # (ops/bvh8.py)
         packed = pack_all8(meshes)
     else:
         meshes = T.MeshBundle.empty()

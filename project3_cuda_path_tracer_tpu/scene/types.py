@@ -1,8 +1,8 @@
 """Scene data model: host dataclasses + device-side SoA pytrees.
 
-TPU-first re-design of the reference's AoS POD structs
+Structure-of-arrays re-design of the reference's AoS POD structs
 (reference: src/sceneStructs.h:8-76). Device data is structure-of-arrays so
-every field maps onto flat [G]/[M]/[N] vectors that the VPU can stream;
+every field maps onto flat [G]/[M]/[N] vectors that kernels stream;
 transforms are [G,4,4] stacked matrices.
 """
 from __future__ import annotations
@@ -152,16 +152,15 @@ class Textures:
     tex_id: jnp.ndarray      # [M] int32 (-1 = none)
     env: jnp.ndarray         # [He,We,3] float32
     env_enabled: jnp.ndarray  # [] float32 (0/1)
-    # Procedural texturing (TPU-fast path: pure elementwise, no gathers).
+    # Procedural texturing (pure elementwise, no gathers).
     # checker_scale[m] > 0 blends material color with checker_color2 on a
     # scale-sized uv checkerboard. sky: [14] = enabled, zenith rgb,
     # horizon rgb, sun dir xyz, sun rgb, sun sharpness.
     checker_scale: jnp.ndarray   # [M] float32 (0 = off)
     checker_color2: jnp.ndarray  # [M,3] float32
     sky: jnp.ndarray             # [14] float32
-    # Packed single-gather texel planes (TPU fast path: one u32 take per
-    # fetch instead of three f32 takes — random-access gathers are the
-    # scarce resource, ops/wavefront.py). Encodings roundtrip bitwise to
+    # Packed single-gather texel planes (one u32 take per fetch instead
+    # of three f32 takes, ops/wavefront.py). Encodings roundtrip bitwise to
     # the f32 planes: atlas R8G8B8 (source PNGs are 8-bit; byte/255 in f32
     # reproduces read_png exactly) and env RGBE (the Radiance .hdr wire
     # format itself; (m+0.5)*2^(e-136) reproduces read_hdr exactly).
@@ -192,8 +191,8 @@ class Textures:
     # Bump/normal mapping (the texture-item companion feature,
     # reference INSTRUCTION.md "Texture mapping AND Bump mapping"):
     #   bump[m] = (scale, freq) procedural world-space bump field
-    #             (elementwise analytic gradient — the TPU-fast path,
-    #             like the checker; scale 0 = off);
+    #             (elementwise analytic gradient, no gathers, like
+    #             the checker; scale 0 = off);
     #   nrm_id[m]/nrm_rect[m] = file-loaded tangent-space normal map,
     #             packed into the SAME atlas strip as the color
     #             textures (one extra u32 gather per bounce, only when
@@ -304,7 +303,7 @@ class Camera:
 @dataclass
 class RenderSettings:
     """Render-state config (reference: src/sceneStructs.h:54-60) plus
-    TPU-side knobs (SURVEY §5.6)."""
+    the device-side knobs (SURVEY §5.6)."""
     iterations: int = 5000
     trace_depth: int = 8
     image_name: str = "render"
@@ -327,10 +326,10 @@ class RenderSettings:
     # iterations (Bitterli et al. 2020, temporal half + visibility
     # reuse). Effective candidate count grows to restir_cap*M at
     # constant per-frame cost. Small documented bias (tests/
-    # test_restir.py measures it). MEASURED VERDICT (BENCHMARKS.md r4):
-    # a real-time/preview feature — under progressive accumulation the
-    # reused winner correlates frames, so equal-spp quality is 0.94-1.0x
-    # fresh --nee-ris, never better; use for interactive preview.
+    # test_restir.py measures it). A real-time/preview feature — under
+    # progressive accumulation the reused winner correlates frames, so
+    # equal-spp quality is no better than fresh --nee-ris; use for
+    # interactive preview.
     # Implies NEE; area-light scenes with the identity path order only.
     # 0 = off.
     restir: int = 0
@@ -360,15 +359,16 @@ class RenderSettings:
     clamp: float = 0.0
     # Bake the scene tables (geoms/materials/small textures) into the
     # compiled program as constants so XLA folds the transform zeros
-    # and absent features — 1.35x on the cornell forward. Recompiles on
+    # and absent features. Recompiles on
     # scene (not camera) change; disable for workflows that mutate the
     # scene tables between steps (--no-bake).
     bake_scene: bool = True
-    use_pallas: bool = True
     seed: int = 0
-    # PRNG implementation: 'rbg' (XLA RngBitGenerator — much faster on TPU,
-    # slightly weaker split/fold_in decorrelation, fine for Monte Carlo) or
-    # 'threefry2x32' (reference-grade counter RNG).
+    # PRNG implementation: 'rbg' (XLA RngBitGenerator — cheaper bit
+    # generation, slightly weaker split/fold_in decorrelation, fine for
+    # Monte Carlo) or 'threefry2x32' (reference-grade counter RNG). A
+    # choice made on the previous accelerator; an H100 cell decides it
+    # again.
     rng: str = "rbg"
 
 
@@ -377,8 +377,9 @@ class RenderSettings:
 class Scene:
     """Parsed scene: host camera/settings + device SoA tables.
 
-    `packed_meshes` is the per-mesh VMEM-packed form consumed by the Pallas
-    packet traversal (ops/pallas_bvh.pack_all); empty for no meshes."""
+    `packed_meshes` holds one 8-wide BVH per mesh (ops/bvh8.PackedMesh8,
+    built by ops/bvh8.pack_all8 at parse time), read by the mesh
+    traversal; empty for no meshes."""
     camera: Camera
     settings: RenderSettings
     materials: Materials

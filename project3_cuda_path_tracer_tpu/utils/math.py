@@ -1,6 +1,6 @@
 """Math utilities: constants and transform builders.
 
-TPU-native re-design of the reference's utility layer
+Re-design of the reference's utility layer
 (reference: src/utilities.h:12-26, src/utilities.cpp:65-72). All transform
 construction happens on the host in float64-free NumPy float32 so that the
 resulting matrices match the reference's GLM math bit-for-bit where possible.

@@ -1,24 +1,76 @@
-"""ctypes bindings for the native host-runtime library (native/).
+"""Native libraries of the path tracer (native/).
 
-The reference's host runtime is C++ (scene/OBJ/image, reference src/*.cpp);
-this module binds our C++ equivalents and degrades gracefully: every entry
-point answers `is_available()` and callers fall back to the pure-Python
-implementations (scene/bvh.py, utils/image.py) when the library isn't built.
+Host runtime: ctypes bindings for the C++ OBJ parser, BVH builder and PNG
+writer (the reference's host runtime is C++ too, reference src/*.cpp).
+They degrade gracefully: every entry point answers `is_available()` and
+callers fall back to the pure-Python implementations (scene/bvh.py,
+utils/image.py) when the library isn't built.  Build once:  make -C native
 
-Build once:  make -C native
+GPU kernels: `cuda_library()` builds native/src/bvh8_traverse.cu with nvcc
+for sm_90a on first use (or `make -C native cuda`, which calls the same
+builder) and returns the shared library's path; ops/bvh8.py registers its
+handlers with XLA. There is no fallback: a GPU program that needs the
+library fails when it cannot be built.
 """
 from __future__ import annotations
 
 import ctypes as C
 import os
+import shutil
+import subprocess
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
 
-_LIB_PATHS = [
-    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "native", "build", "libpt_native.so"),
-]
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "native")
+_LIB_PATHS = [os.path.join(NATIVE_DIR, "build", "libpt_native.so")]
+CUDA_SOURCE = os.path.join(NATIVE_DIR, "src", "bvh8_traverse.cu")
+CUDA_LIBRARY = os.path.join(NATIVE_DIR, "build", "libpt_cuda.so")
+# Full-precision float (no --use_fast_math): the kernel must agree with
+# the plain XLA walk. sm_90a is Hopper's own target.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> Optional[str]:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    return default if os.path.exists(default) else None
+
+
+def cuda_library(source: Optional[str] = None,
+                 library: Optional[str] = None,
+                 timeout: float = 600.0) -> str:
+    """Path of the CUDA kernel library (default CUDA_LIBRARY), compiled
+    from `source` (default CUDA_SOURCE) when it is missing or older than
+    the source. Raises RuntimeError when it cannot be built (no nvcc, or a
+    compile error)."""
+    source = source or CUDA_SOURCE
+    library = library or CUDA_LIBRARY
+    if (os.path.exists(library)
+            and os.path.getmtime(library) >= os.path.getmtime(source)):
+        return library
+    nvcc = _nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            f"{library} is missing and nvcc was not found to build it from "
+            f"{source} (make -C native cuda)")
+    import jax.ffi
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    tmp = f"{library}.tmp{os.getpid()}"
+    cmd = [nvcc, *NVCC_FLAGS, "-I", jax.ffi.include_dir(), source,
+           "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {library} failed:\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, library)
+    return library
 
 _lib = None
 
@@ -121,3 +173,9 @@ def write_png(path: str, rgb8: np.ndarray) -> bool:
     rc = lib.pt_write_png(path.encode(), w, h,
                           img.ctypes.data_as(C.POINTER(C.c_ubyte)))
     return rc == 0
+
+
+if __name__ == "__main__":
+    # `make -C native cuda` builds the GPU library through this entry.
+    print(cuda_library())
+    sys.exit(0)

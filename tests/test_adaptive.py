@@ -13,7 +13,7 @@ from project3_cuda_path_tracer_tpu.scene import types as T
 
 @pytest.fixture(scope="module")
 def cornell_small():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (32, 32)
     s.camera.derive()
     return s
@@ -139,8 +139,7 @@ def test_adaptive_checkpoint_resume(cornell_small):
 
 def test_adaptive_cli_flag(tmp_path):
     from project3_cuda_path_tracer_tpu.app import cli
-    rc = cli.main(["/root/reference/scenes/cornell.txt", "--adaptive",
-                   "--megakernel"])
+    rc = cli.main(["scenes/cornell.txt", "--adaptive", "--sort"])
     assert rc == 2  # incompatible combination is refused
 
 

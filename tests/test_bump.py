@@ -78,7 +78,7 @@ def test_parser_bump_and_normalmap_keys(tmp_path):
     w, h = np.asarray(s.textures.nrm_rect)[0, 2:4]
     assert (w, h) == (4, 4)
     # reference scenes must parse unchanged (no bump)
-    ref = load_scene("/root/reference/scenes/cornell.txt")
+    ref = load_scene("scenes/cornell.txt")
     assert not np.any(np.asarray(ref.textures.bump))
 
 

@@ -18,11 +18,11 @@ def test_all_flags_parse():
         "--outdir", "/tmp", "--hdr", "--no-antialias", "--sort",
         "--compact", "--seed", "3", "--snapshot-every", "5",
         "--checkpoint-every", "7", "--resume", "--metrics",
-        "--timestamp-name", "--megakernel", "--preview", "8123",
+        "--timestamp-name", "--preview", "8123",
         "--debug-nans"])
     assert args.iterations == 10 and args.depth == 4
     assert args.hdr and args.no_antialias and args.resume
-    assert args.preview == 8123 and args.megakernel
+    assert args.preview == 8123 and args.timestamp_name
 
 
 def test_missing_scene_errors(capsys):

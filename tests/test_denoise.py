@@ -51,7 +51,7 @@ def test_albedo_gbuffer_classes():
     """cornell first-hit albedo plane: diffuse walls carry their material
     color; the mirror sphere carries the RELAYED factor spec_color x
     (reflected surface's albedo, or 1 on a reflected miss)."""
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (64, 64)
     s.camera.derive()
     cfg = Renderer(s).cfg
@@ -136,7 +136,7 @@ def test_demod_preserves_texture_detail():
 def test_renderer_denoise_improves_low_spp(tmp_path):
     """4-spp cornell denoised must land closer to a 160-spp reference
     than raw 4-spp does (the point of the Project-4 extension)."""
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (64, 64)
     s.camera.derive()
     s.settings.trace_depth = 4
@@ -167,13 +167,13 @@ def test_variance_guided_filter_runs_and_improves_raw():
     spatial-variance-guided filter does NOT beat the tuned fixed-sigma
     a-trous schedule (e.g. 0.0921 vs 0.0723 RMSE at 16 spp; true
     per-pixel MC variance from the adaptive accumulator wins only ~6% at
-    4 spp and loses at 16 — BENCHMARKS.md round 4), so the default stays
+    4 spp and loses at 16), so the default stays
     fixed-sigma and no CLI flag promotes this mode. The pinned contract:
     the guided filter is finite and still a strong improvement over the
     raw image."""
     from project3_cuda_path_tracer_tpu.render import denoise as dn
     import jax.numpy as jnp
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (64, 64)
     s.camera.derive()
     s.settings.trace_depth = 4

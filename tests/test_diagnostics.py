@@ -7,7 +7,7 @@ from project3_cuda_path_tracer_tpu.render.diagnostics import (
 
 
 def test_live_paths_monotonically_decrease():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (32, 32)
     s.camera.derive()
     s.settings.trace_depth = 5
@@ -19,7 +19,7 @@ def test_live_paths_monotonically_decrease():
 
 
 def test_compaction_ratios_bounded():
-    s = load_scene("/root/reference/scenes/sphere.txt")
+    s = load_scene("scenes/sphere.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     s.settings.trace_depth = 3

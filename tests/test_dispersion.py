@@ -33,7 +33,7 @@ def test_parser_reads_dispersion(disp_scene):
 def test_cfg_gate(disp_scene):
     r = I.Renderer(disp_scene)
     assert r.cfg.dispersion is True
-    s2 = load_scene("/root/reference/scenes/cornell.txt")
+    s2 = load_scene("scenes/cornell.txt")
     assert I.Renderer(s2).cfg.dispersion is False
 
 

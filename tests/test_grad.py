@@ -16,7 +16,7 @@ from project3_cuda_path_tracer_tpu.models.inverse import (
 
 @pytest.fixture(scope="module")
 def setup():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     gt = tuple(int(x) for x in np.asarray(s.geoms.type))
@@ -197,7 +197,7 @@ def test_inverse_rendering_recovers_albedo():
     """End-to-end inverse test: perturb the back-wall albedo, fit it back."""
     import dataclasses
     import optax
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     gt = tuple(int(x) for x in np.asarray(s.geoms.type))
@@ -295,7 +295,7 @@ def test_train_scan_matches_sequential_steps():
     (same fold_in RNG schedule, same optimizer)."""
     from project3_cuda_path_tracer_tpu.models.inverse import (
         RenderParams, make_train_step, make_train_scan)
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     gt = tuple(int(x) for x in np.asarray(s.geoms.type))
@@ -337,7 +337,7 @@ def test_history_loss_grad_equals_unbiased_when_residual_is_fresh():
     graph — the history form just hoists the detached factor out)."""
     from project3_cuda_path_tracer_tpu.models.inverse import (
         unbiased_mse_grad_loss, history_residual_grad_loss, render_image)
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     gt = tuple(int(x) for x in np.asarray(s.geoms.type))
@@ -370,7 +370,7 @@ def test_history_scan_matches_sequential_history_steps():
     sequence (same fold_in schedule, same seed render)."""
     from project3_cuda_path_tracer_tpu.models.inverse import (
         RenderParams, make_train_step, make_train_scan, make_seed_history)
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     gt = tuple(int(x) for x in np.asarray(s.geoms.type))
@@ -419,7 +419,7 @@ def test_history_scan_recovers_albedo():
     import optax
     from project3_cuda_path_tracer_tpu.models.inverse import (
         make_train_scan, make_seed_history)
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     gt = tuple(int(x) for x in np.asarray(s.geoms.type))
@@ -465,7 +465,7 @@ def test_inverse_renderer_history_mode():
     """InverseRenderer(history=True) — the class-level wrapper around the
     one-render step — must run, maintain its residual image, and report
     finite losses; history=False keeps the two-render path."""
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     target = np.zeros((16, 16, 3), np.float32)
@@ -488,7 +488,7 @@ def test_inverse_renderer_polish_tail():
     (default POLISH_STEPS capped at half the fit): losses stay finite,
     the optimizer state carries across the loss switch, and the stale
     residual is dropped (re-seeded on any later history step)."""
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     target = np.zeros((16, 16, 3), np.float32)

@@ -16,7 +16,7 @@ def test_png_roundtrip(tmp_path):
 
 
 def test_reference_golden_png_loads():
-    ref = img_io.read_png("/root/reference/img/REFERENCE_cornell.5000samp.png")
+    ref = img_io.read_png("renders/cornell_5000spp.png")
     assert ref.shape == (800, 800, 3)
     assert 0.05 < ref.mean() < 0.3
 

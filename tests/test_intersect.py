@@ -129,7 +129,7 @@ def test_fused_matches_two_pass():
     reference implementation on a random wavefront over mixed geoms."""
     import jax
     from project3_cuda_path_tracer_tpu import load_scene
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     rng = np.random.default_rng(3)
     n = 512
     o = rng.uniform(-6, 11, (n, 3)).astype(np.float32)

@@ -17,7 +17,7 @@ from project3_cuda_path_tracer_tpu.scene import types as T
 
 @pytest.fixture(scope="module")
 def cornell():
-    return load_scene("/root/reference/scenes/cornell.txt")
+    return load_scene("scenes/cornell.txt")
 
 
 def _cfgs(scene, res=48, depth=5):
@@ -452,8 +452,8 @@ def test_glossy_nee_unbiased():
 
 def test_any_hit_traversal_matches_nearest_occlusion():
     """any_hit=True (occlusion mode, used by NEE shadow rays) must report
-    a hit exactly where the nearest-hit traversal finds one — it just
-    stops each lane early."""
+    a hit exactly where the nearest-hit traversal finds one, at a
+    positive distance inside the bound."""
     from project3_cuda_path_tracer_tpu.scene import bvh as B
     from project3_cuda_path_tracer_tpu.ops import bvh8 as B8
     bundle = B.build_mesh_bundle(["scenes/meshes/torus.obj"])
@@ -465,9 +465,10 @@ def test_any_hit_traversal_matches_nearest_occlusion():
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     qo = tuple(jnp.asarray(c) for c in o)
     qd = tuple(jnp.asarray(c) for c in d)
-    _, _, _, _, tri_n = B8.traverse_packets8(qo, qd, packed)
-    t_a, _, _, _, tri_a = B8.traverse_packets8(qo, qd, packed,
-                                               any_hit=True)
+    tb = jnp.full((n,), 1e30, jnp.float32)
+    _, _, _, _, tri_n = B8.traverse(qo, qd, tb, packed, bundle, 0)
+    t_a, _, _, _, tri_a = B8.traverse(qo, qd, tb, packed, bundle, 0,
+                                      any_hit=True)
     occ_nearest = np.asarray(tri_n) >= 0
     occ_any = np.asarray(tri_a) >= 0
     assert occ_nearest.sum() > 20  # the ray set actually hits the torus
@@ -676,7 +677,7 @@ def test_gather_sampler_matches_unroll():
     uf = jnp.asarray(rng.random(512, dtype=np.float32))
     u1 = jnp.asarray(rng.random(512, dtype=np.float32))
     u2 = jnp.asarray(rng.random(512, dtype=np.float32))
-    for scene_path in ("/root/reference/scenes/cornell.txt",
+    for scene_path in ("scenes/cornell.txt",
                        "scenes/manylights.txt"):
         s = load_scene(scene_path)
         faces, _ = nee.build_light_table(s)

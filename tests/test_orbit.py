@@ -9,7 +9,7 @@ from project3_cuda_path_tracer_tpu.app.orbit import OrbitState
 
 @pytest.fixture()
 def cam():
-    return load_scene("/root/reference/scenes/cornell.txt").camera
+    return load_scene("scenes/cornell.txt").camera
 
 
 def test_roundtrip_preserves_camera(cam):

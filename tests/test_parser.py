@@ -1,6 +1,6 @@
 """Scene-parser tests: the grammar must be verbatim-compatible with the
 reference format (reference: src/scene.cpp; SURVEY §5.6 requires
-/root/reference/scenes/cornell.txt to load unchanged)."""
+scenes/cornell.txt to load unchanged)."""
 import numpy as np
 import pytest
 
@@ -8,7 +8,7 @@ from project3_cuda_path_tracer_tpu import load_scene
 from project3_cuda_path_tracer_tpu.scene import types as T
 from project3_cuda_path_tracer_tpu.scene.parser import SceneParseError
 
-REF_CORNELL = "/root/reference/scenes/cornell.txt"
+REF_CORNELL = "scenes/cornell.txt"
 REPO_CORNELL = "scenes/cornell.txt"
 
 
@@ -66,7 +66,7 @@ def test_repo_scene_matches_reference_scene():
 
 
 def test_sphere_scene():
-    s = load_scene("/root/reference/scenes/sphere.txt")
+    s = load_scene("scenes/sphere.txt")
     assert s.num_geoms == 1
     assert int(s.geoms.type[0]) == T.SPHERE
     assert float(s.materials.emittance[0]) == 5.0

@@ -10,7 +10,7 @@ from project3_cuda_path_tracer_tpu.utils import image as img_io
 
 
 def test_clamp_caps_per_sample_radiance():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     st = T.RenderSettings(**{**s.settings.__dict__, "clamp": 0.5,
@@ -24,7 +24,7 @@ def test_clamp_caps_per_sample_radiance():
 
 
 def test_clamp_zero_is_identity():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     base = I.Renderer(s)

@@ -13,7 +13,7 @@ from project3_cuda_path_tracer_tpu.app.preview import PreviewServer
 
 @pytest.fixture(scope="module")
 def server():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     s.settings.trace_depth = 2
@@ -32,7 +32,7 @@ def _get(srv, path):
 def test_index(server):
     srv, _ = server
     body = _get(srv, "/").read()
-    assert b"tpu path tracer" in body
+    assert b"path tracer" in body
 
 
 def test_state(server):
@@ -89,8 +89,7 @@ def test_encode_png_roundtrip(tmp_path):
 
 
 def test_preview_with_restir_orbit_invalidates_reservoir():
-    """--restir is pitched as the interactive-preview feature
-    (BENCHMARKS.md round 4): the preview must serve frames from a restir
+    """--restir is pitched as the interactive-preview feature: the preview must serve frames from a restir
     renderer, and an orbit (camera change) must RESET the temporal
     reservoir — stale light points must never survive a camera move."""
     from project3_cuda_path_tracer_tpu.scene import types as T

@@ -13,7 +13,7 @@ from project3_cuda_path_tracer_tpu.scene import types as T
 
 @pytest.fixture(scope="module")
 def cornell_small():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (32, 32)
     s.camera.derive()
     return s
@@ -36,7 +36,7 @@ def test_direct_light_pixel_exact(cornell_small):
 
 
 def test_sphere_scene_background_black():
-    s = load_scene("/root/reference/scenes/sphere.txt")
+    s = load_scene("scenes/sphere.txt")
     s.camera.resolution = (16, 16)
     s.camera.derive()
     img = render(s, 2, antialias=False)
@@ -113,8 +113,8 @@ def test_sort_compact_preserve_image(cornell_small):
 
 
 def test_vmem_tiles_estimator(cornell_small):
-    """TraceConfig.vmem_tiles runs the bounce loop per ray tile (a measured
-    perf experiment — BENCHMARKS.md round 2). Per-bounce uniforms are keyed
+    """TraceConfig.vmem_tiles runs the bounce loop per ray tile (a perf
+    experiment). Per-bounce uniforms are keyed
     (depth, tile), a different but equally valid stream: the tiled render
     must be deterministic and statistically match the untiled estimator."""
     import dataclasses

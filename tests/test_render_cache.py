@@ -7,7 +7,7 @@ from project3_cuda_path_tracer_tpu.scene.types import RenderSettings
 
 
 def test_first_bounce_cache_matches():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (32, 32)
     s.camera.derive()
     base = RenderSettings(**{**s.settings.__dict__, "antialias": False,

@@ -10,13 +10,13 @@ temporal reservoir reuse across progressive iterations (Bitterli et al.
     plain-NEE truth (it must be small relative to the truth signal);
   * the honest accumulation contract: temporal reuse correlates
     consecutive frames, so at equal spp restir is bounded-close to
-    fresh RIS, not better (measured 0.94-1.00x across the spp sweep;
-    full characterization + real-time framing in BENCHMARKS.md round 4);
+    fresh RIS, not better (measured 0.94-1.00x quality across the spp
+    sweep);
   * checkpoint extras round-trip (stream-identical resume);
   * CLI flag wiring + incompatibility exits.
 
-Equal-TIME RMSE numbers live in BENCHMARKS.md (measured on the real
-chip; CPU timings would be meaningless for the kernel mix).
+Equal-TIME RMSE is a chip measurement (CPU timings would be meaningless
+for the kernel mix); no H100 number exists yet (ROADMAP A9).
 """
 import numpy as np
 import pytest
@@ -120,7 +120,7 @@ def test_restir_bias_vs_three_seed_truth(manylights_small):
 
 @pytest.mark.slow
 def test_restir_accumulation_regression_bound(manylights_small):
-    """HONEST MEASURED CONTRACT (BENCHMARKS.md round 4): under
+    """HONEST MEASURED CONTRACT: under
     progressive ACCUMULATION the temporal reservoir's reused winner
     correlates consecutive frames, so at equal spp it does NOT beat
     fresh RIS — measured 0.94-1.00x of fresh-RIS quality across the spp

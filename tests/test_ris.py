@@ -174,7 +174,7 @@ def test_mixed_ris_matches_mixed_nee_in_expectation(mixed_scene):
     """Mixed-candidate RIS re-weights which mixture sample gets the
     shadow ray; the estimator mean must match the plain one-sample
     mixture (independent seeds). Measured at commit time: absdiff 7e-4 at
-    192 spp; low-spp RMSE 1.21-1.25x better (BENCHMARKS.md round 4)."""
+    192 spp; low-spp RMSE 1.21-1.25x better."""
     plain = render(mixed_scene, 96, nee=True, seed=3)
     ris = render(mixed_scene, 96, nee=True, nee_ris=4, seed=9)
     assert abs(float(plain.mean()) - float(ris.mean())) < 0.02

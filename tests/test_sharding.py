@@ -13,7 +13,7 @@ from project3_cuda_path_tracer_tpu.render.integrator import Renderer
 
 @pytest.fixture(scope="module")
 def cornell_32():
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (32, 32)
     s.camera.derive()
     s.settings.trace_depth = 4
@@ -107,7 +107,7 @@ def test_accumulator_is_actually_sharded(cornell_32):
 
 def test_indivisible_height_rejected(cornell_32):
     import copy
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (30, 30)
     s.camera.derive()
     with pytest.raises(ValueError):
@@ -125,8 +125,9 @@ def test_submesh(cornell_32):
 
 @pytest.mark.slow
 def test_sharded_mesh_scene_matches_single():
-    """Mesh scenes (Pallas packet traversal inside a GSPMD-sharded jit,
-    tile-swizzled paths) must produce the identical image sharded vs not."""
+    """Mesh scenes (the traversal run per shard inside a GSPMD-sharded
+    jit, tile-swizzled paths) must produce the identical image sharded vs
+    not."""
     s = load_scene("scenes/mesh.txt")
     s.camera.resolution = (64, 64)
     s.camera.derive()

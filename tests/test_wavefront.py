@@ -13,7 +13,7 @@ from project3_cuda_path_tracer_tpu.ops import (
 
 @pytest.fixture(scope="module")
 def cornell():
-    return load_scene("/root/reference/scenes/cornell.txt")
+    return load_scene("scenes/cornell.txt")
 
 
 def rand_rays(n, seed=0):
@@ -158,7 +158,7 @@ def test_tiled_render_matches_untiled():
     from project3_cuda_path_tracer_tpu import load_scene
     from project3_cuda_path_tracer_tpu.render import integrator as I
     import dataclasses
-    s = load_scene("/root/reference/scenes/cornell.txt")
+    s = load_scene("scenes/cornell.txt")
     s.camera.resolution = (32, 32)
     s.camera.derive()
     gt = tuple(int(x) for x in np.asarray(s.geoms.type))

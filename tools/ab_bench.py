@@ -25,6 +25,9 @@ def main() -> int:
                     help="override square resolution")
     args = ap.parse_args()
 
+    from project3_cuda_path_tracer_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     from project3_cuda_path_tracer_tpu import load_scene
     from project3_cuda_path_tracer_tpu.render.integrator import Renderer
     from project3_cuda_path_tracer_tpu.scene.types import RenderSettings

@@ -5,10 +5,9 @@ The many-light stress scene (round-5 verdict item): proves the whole
 direct-lighting path is DYNAMIC in light count — the CDF-gather face
 sampler (ops/nee.py, F > UNROLL_MAX_FACES), gather-based material fetch
 (ops/wavefront.MAT_UNROLL_MAX), and RIS candidates all compile O(1) in
-F and M (the round-4 static unroll measured >50 min CPU compile at just
-64 faces x M=4). Light-SELECTION variance dominates here — the home
-regime for --nee-ris / --restir (equal-time table in BENCHMARKS.md
-round 5).
+F and M (the static unroll took >50 min of CPU compile at just 64
+faces x M=4). Light-SELECTION variance dominates here — the home regime
+for --nee-ris / --restir.
 
 Deterministic (fixed seed); run from the repo root:
     python tools/gen_manylights256.py > scenes/manylights256.txt

@@ -31,8 +31,8 @@ def main() -> int:
                     help="use the one-render history-residual loss "
                          "(models/inverse.history_residual_grad_loss) "
                          "instead of the two-render unbiased loss — the "
-                         "round-4 train-step form; fits must match "
-                         "(BENCHMARKS.md A/B)")
+                         "throughput train-step form; fits must "
+                         "match")
     ap.add_argument("--polish", type=int, default=0,
                     help="with --history: run the LAST N steps with the "
                          "two-render unbiased loss (the round-5 "
@@ -45,6 +45,9 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
     import optax
+    from project3_cuda_path_tracer_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     from project3_cuda_path_tracer_tpu import load_scene
     from project3_cuda_path_tracer_tpu.render import integrator as integ
     from project3_cuda_path_tracer_tpu.models.inverse import (

@@ -2,7 +2,8 @@
 timing per config (the round's evidence pack).
 
 Usage: python tools/render_all.py [--outdir renders] [--spp N] [--quick]
-Run on TPU (default env); --quick caps iterations for smoke runs.
+Run on the GPU (JAX's default platform); --quick caps iterations for smoke
+runs.
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ def main() -> int:
                     help="cap at 8 spp (smoke run)")
     args = ap.parse_args()
 
+    from project3_cuda_path_tracer_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     from project3_cuda_path_tracer_tpu import load_scene, Renderer
 
     os.makedirs(args.outdir, exist_ok=True)

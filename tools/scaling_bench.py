@@ -2,8 +2,8 @@
 across chips/hosts).
 
 Runs the sharded renderer over submeshes of 1..K devices and reports
-rays/s + efficiency vs linear. On real multi-chip hardware this measures
-ICI scaling; on the virtual CPU mesh it validates the harness and the SPMD
+rays/s + efficiency vs linear. On a multi-GPU host this measures scaling
+over NVLink; on the virtual CPU mesh it validates the harness and the SPMD
 program only (all "devices" share one socket, so efficiency numbers are
 not meaningful there — the harness prints the backend so the reader knows).
 
@@ -23,8 +23,8 @@ sys.path.insert(0, ROOT)
 
 def run_multiprocess(args) -> int:
     """Spawn an N-process jax.distributed job (tools/mp_worker.py, Gloo
-    collectives on CPU) and report its steady-state throughput — the same
-    code path a real multi-host TPU launch takes."""
+    collectives on CPU) and report its steady-state throughput — the
+    jax.distributed code path a multi-host launch takes."""
     import socket
     import subprocess
     import tempfile
@@ -61,6 +61,9 @@ def main() -> int:
         return run_multiprocess(args)
 
     import jax
+    from project3_cuda_path_tracer_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     from project3_cuda_path_tracer_tpu import load_scene
     from project3_cuda_path_tracer_tpu.parallel.sharding import (
         make_mesh, ShardedRenderer)
